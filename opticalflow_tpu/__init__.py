@@ -1,6 +1,6 @@
-"""opticalflow_tpu — a TPU-native variational optical flow engine.
+"""opticalflow_tpu — an on-device variational optical flow engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 kursawe/OpticalFlow reference pipeline (variational optical flow with net
 remodelling for actin/myosin/Rho fluorescence movies):
 

@@ -719,5 +719,14 @@ def main(argv=None):
     return fn(**kwargs)
 
 
+def cli():
+    """Command-line entry point: ``main`` with the persistent compile cache
+    enabled (the library itself sets none)."""
+    from opticalflow_tpu.utils import compile_cache
+
+    compile_cache.enable()
+    return main()
+
+
 if __name__ == "__main__":
-    main()
+    cli()

@@ -1,6 +1,6 @@
 """Hyperparameter-sensitivity sweeps for the box-method flow.
 
-TPU-native equivalents of the reference's box-size and blur-size
+On-device equivalents of the reference's box-size and blur-size
 analyses (/root/reference/analysis/compare_rho_and_actin.py:377-483 and
 :485-614), which run one full ``conduct_optical_flow`` per parameter
 value in a serial matplotlib-animation loop.  Here each sweep is a single

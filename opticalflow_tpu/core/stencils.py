@@ -1,6 +1,6 @@
 """Finite-difference stencil operators with the reference's conventions.
 
-These are the TPU-native (pure jnp, fully vectorized, jit/vmap-friendly)
+These are the on-device (pure jnp, fully vectorized, jit/vmap-friendly)
 equivalents of the reference's numba helpers
 ``apply_numerical_derivative`` (/root/reference/source/optical_flow.py:676-713)
 and ``apply_constant_boundary_condition`` (:1304-1316).

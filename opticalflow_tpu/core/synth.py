@@ -1,6 +1,6 @@
 """Synthetic ("fake") test-data generation.
 
-Vectorized TPU-native equivalent of the reference's numba generator
+Vectorized on-device equivalent of the reference's numba generator
 ``make_fake_data_frame`` (/root/reference/source/optical_flow.py:376-423):
 a Gaussian hat exp(-((x-x0)^2 + (y-y0)^2)/sigma^2) sampled on a square
 grid, optionally with tiny uniform noise.

@@ -122,9 +122,13 @@ class FlowResult(Mapping):
         return f"FlowResult({shapes})"
 
 
+_MATVECS = ("auto", "xla", "gspmd")
+_REMOVED_MATVECS = ("pallas", "hybrid")
+
+
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """Krylov solver configuration (the TPU-native analogue of the PETSc
+    """Krylov solver configuration (the on-device analogue of the PETSc
     option strings at ref optical_flow.py:1080-1093, 1117-1126)."""
 
     # 'auto' picks BiCGStab below 500 interior points on the longest axis
@@ -138,58 +142,66 @@ class SolverConfig:
     atol: float = 0.0
     max_iterations: int = 1000
     preconditioner: str = "multigrid"  # 'none' | 'block_jacobi' | 'multigrid'
-    # Dot products / norms can be accumulated in f64 even when the fields are
-    # f32 ("compensated" reductions); cheap on TPU and stabilises BiCGStab.
+    # Dot products / norms are accumulated in f64 when x64 is enabled, even
+    # when the fields are f32 ("compensated" reductions, scalar work beside
+    # the memory-bound matvecs); this stabilises BiCGStab.  Without x64
+    # they run in the field dtype.
     high_precision_reductions: bool = True
     # The convergence test floors the tolerance at ``dtype_tol_floor *
     # eps(dtype) * ||b||`` — the attainable accuracy of f32 BiCGStab on
     # these systems — so f32 runs report convergence at working precision
-    # instead of chasing an unreachable f64 tolerance.  300 is calibrated
-    # on the 256^2 bench workload (bench/accuracy_sweep.py): floors >= 500
-    # stop at EPE ~3e-3 px vs the f64 direct solve, 300-400 reach ~7e-4 px
-    # (inside the <1e-3 px BASELINE target), and *lower* floors make the
-    # solution worse again (post-stall BiCGStab steps add recurrence noise;
-    # the solver's stagnation guard returns the best iterate instead of
-    # looping to max_iterations when a workload cannot reach the floor).
+    # instead of chasing an unreachable f64 tolerance.  300 was calibrated
+    # on the 256^2 bench workload against the f64 direct solve: much higher
+    # floors stop above the <1e-3 px BASELINE EPE target, and *lower*
+    # floors make the solution worse again (post-stall BiCGStab steps add
+    # recurrence noise; the solver's stagnation guard returns the best
+    # iterate instead of looping to max_iterations when a workload cannot
+    # reach the floor).  chip_smoke.py re-checks the target on the GPU.
     dtype_tol_floor: float = 300.0
     # Maximum iterative-refinement steps after the main solve: each
     # recomputes the true residual in double-float compensated arithmetic
-    # (ops.df32 — f64-quality residual at VPU cost; plain f32 evaluation
-    # noise floors the attainable residual at ~2e-4 relative) and solves a
-    # correction system to `refinement_rtol` with the same preconditioned
-    # matvec.  The loop is adaptive: it exits as soon as the df32 true
+    # (ops.df32 — f64-quality residual from f32 elementwise work; plain f32
+    # evaluation noise floors the attainable residual far above that) and
+    # solves a correction system to `refinement_rtol` with the same
+    # preconditioned matvec.  The loop is adaptive: it exits as soon as the df32 true
     # residual meets the floored tolerance (typically 1-2 steps; stalled /
     # breakdown pairs take more — each step doubles as a BiCGStab
-    # restart).  See flow.variational / bench.py for measured EPE impact.
+    # restart).  See flow.variational for the rationale.
     refinement_restarts: int = 8
     refinement_rtol: float = 0.2
     # The refinement loop exits when the df32 true residual reaches
     # ``refinement_exit_factor * tol`` — refining *past* the reported
     # tolerance so the flow EPE keeps margin under the <1e-3 px BASELINE
-    # target instead of landing on the tolerance boundary.  Tuned on-chip
-    # (bench/refine_tune.py, 12-pair 256^2 batch): 0.25 left pair EPEs at
-    # 1.45e-3 px; 0.1 reaches 9.7e-5 px at the SAME wall time, because the
-    # batch's slowest pair already sets the adaptive loop's trip count.
+    # target instead of landing on the tolerance boundary.  On the 12-pair
+    # 256^2 batch a looser 0.25 left pair EPEs above target while 0.1 met
+    # it at no extra wall time, because the batch's slowest pair already
+    # sets the adaptive loop's trip count.
     # ``None`` resolves by grid size (flow.variational): 0.1 below 500
     # interior points on the longest axis, 0.03 at/above — at 1024^2 the
-    # worse conditioning turns exit 0.1's residual slack into EPE
-    # 1.325e-3 px vs an f64 FGMRES oracle (above target), while 0.03
-    # lands 1.101e-4 px at +23% iterations (tests/test_accuracy_1024.py).
+    # worse conditioning turns exit 0.1's residual slack into EPE above
+    # target vs an f64 FGMRES oracle, which 0.03 meets
+    # (tests/test_accuracy_1024.py).
     refinement_exit_factor: Optional[float] = None
     # FGMRES restart length (memory: ~2*restart solution-size vectors per
     # concurrently solved pair — lower it for large batched stacks).
     gmres_restart: int = 32
-    # Matvec implementation.  'auto' resolves to the XLA stencil — on-chip
-    # differenced-chain measurements show XLA's fusion at ~90% of HBM peak
-    # on its actual traffic and slightly ahead of the fused Pallas kernel
-    # (VPU-bound from on-the-fly coefficient rebuild) at both kernel and
-    # full-solve level; see flow.variational._resolve_matvec_impl.
-    # 'pallas' forces the fused kernel.  In the sharded paths, 'xla'/'auto'
-    # run the one-exchange-per-application shard_map stencil when the
-    # interior divides the mesh, 'pallas' the fused kernel under the same
-    # halo exchange, and 'gspmd' the fully automatic partitioning
-    # (parallel.batch / parallel.pallas_spmd).
-    matvec: str = "auto"  # 'auto' | 'xla' | 'pallas' | 'gspmd' (sharded)
+    # Matvec partitioning in the sharded paths (parallel.batch): 'auto' /
+    # 'xla' run the one-exchange-per-application shard_map stencil
+    # (parallel.halo) when the interior divides the mesh, 'gspmd' the
+    # fully automatic partitioning.  On one device every value runs the
+    # XLA-fused stencil.
+    matvec: str = "auto"  # 'auto' | 'xla' | 'gspmd'
+
+    def __post_init__(self):
+        if self.matvec in _REMOVED_MATVECS:
+            raise ValueError(
+                f"matvec={self.matvec!r} was removed together with its "
+                "Pallas kernels; use 'auto' (the XLA-fused stencil)"
+            )
+        if self.matvec not in _MATVECS:
+            raise ValueError(
+                f"unknown matvec {self.matvec!r}; expected one of {_MATVECS}"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,7 +227,7 @@ class VariationalConfig:
     # 'compat' replicates the reference's dy-rule defect (see core.stencils).
     dy_mode: str = "compat"
     solver: SolverConfig = dataclasses.field(default_factory=SolverConfig)
-    dtype: Any = None  # None -> float32 on TPU, float64 if x64 enabled
+    dtype: Any = None  # None -> float32, or float64 if x64 is enabled
 
     def run(self, movie) -> "FlowResult":
         """Run the variational solve on ``movie`` with this preset."""

@@ -1,6 +1,6 @@
 """Box-method optical flow (Vig et al. Biophysical Journal 2016).
 
-TPU-native re-design of the reference's numba kernel
+On-device re-design of the reference's numba kernel
 ``conduct_optical_flow_jit`` (/root/reference/source/optical_flow.py:24-157)
 and its wrapper ``conduct_optical_flow`` (:159-218).
 

@@ -1,6 +1,6 @@
 """Liu-Shen physics-based optical flow (legacy Jacobi path).
 
-TPU-native re-design of the reference's deprecated numba kernel
+On-device re-design of the reference's deprecated numba kernel
 ``liu_shen_optical_flow_jit`` (/root/reference/source/optical_flow.py:426-673)
 and its driver ``conduct_variational_optical_flow_deprecated`` (:1318-1529):
 a fixed-count synchronous (Jacobi) iteration of the Liu-Shen equations,

@@ -1,6 +1,6 @@
 """Flagship variational optical flow (velocity + net remodelling).
 
-TPU-native re-design of the reference's ``variational_optical_flow``
+On-device re-design of the reference's ``variational_optical_flow``
 (/root/reference/source/optical_flow.py:715-1210).  Per frame pair the
 reference assembles a ``3*Ni*Nj`` sparse system on the host and solves it
 with PETSc BiCGStab; here the system never materialises — derivative
@@ -72,55 +72,16 @@ def resolve_method(method: str, m: int, n: int) -> str:
     """Resolve ``method='auto'`` to a concrete Krylov solver by grid size.
 
     f32 BiCGStab's coupled two-term recurrences disintegrate as the grid
-    grows (measured on the bench EL systems: recursive residual
-    'converges' while the true residual is stuck at ~0.5 at 512^2, total
-    collapse at 1024^2 — see solve.krylov.fgmres notes), while FGMRES+MG
-    minimises the true residual monotonically by construction.  So 'auto'
-    picks BiCGStab below 500 interior points on the longest axis (faster
-    per iteration, reliable there) and FGMRES at/above it.  The engine
-    acting on its own documented failure mode closes VERDICT r3 weak #5.
+    grows (on the bench EL systems the recursive residual 'converges'
+    while the true residual stalls at 512^2 and collapses at 1024^2 — see
+    solve.krylov.fgmres notes), while FGMRES+MG minimises the true
+    residual monotonically by construction.  So 'auto' picks BiCGStab
+    below 500 interior points on the longest axis (faster per iteration,
+    reliable there) and FGMRES at/above it.
     """
     if method != "auto":
         return method
     return "bicgstab" if max(m, n) < 500 else "gmres"
-
-
-def _resolve_matvec_impl(matvec_impl: str, n: int, dtype) -> str:
-    """Resolve ``'auto'`` to a concrete matvec implementation.
-
-    ``'auto'`` resolves to ``'xla'``, and round 5 closed the question of
-    whether anything can beat it.  On-chip measurements (differenced
-    100/500-application chains so dispatch latency cancels; 12-pair
-    256^2 batch, us per batched application):
-
-    ========================  =====  ==========================================
-    implementation            us/app  binding resource
-    ========================  =====  ==========================================
-    XLA fused stencil          75-83  HBM at ~90-97% of peak (19-plane traffic)
-    XLA lean (recompute all)   74.9   VPU (7-plane traffic, 36% of bw peak)
-    XLA lean (cache 3 heavy)   77.8   VPU/mixed (10-plane traffic)
-    XLA + bf16 Krylov state    80.5   HBM 76% (16-plane-equiv) + convert ops
-    XLA + bf16 coeff planes    86.8   convert-op bound
-    Pallas v4 (mirror folds)   92-97  VPU: ~38 fold-select planes/application
-    Pallas v5 core (plain)     70.3   VPU: stencil+rebuild arithmetic
-    Pallas v5 + ring rows      106.5  XLA DUS overwrite of 2 row strips
-    Pallas v5 + full ring      388.5  lane-dim DUS of column strips
-    ========================  =====  ==========================================
-
-    Every route lands at ~70-97us: the application is at its practical
-    speed-of-light — XLA's 19-plane form sits at ~90% of its memory
-    roofline, and every traffic-reducing variant (Pallas rebuild, XLA
-    recompute-in-loop, bf16 halving) converts the saved bandwidth into
-    an equal-or-larger VPU/convert cost.  The v5 plain kernel is the
-    fastest raw kernel but needs its boundary ring overwritten (the
-    mirror semantics), and the cheapest ring mechanism found (XLA
-    dynamic-update-slice) costs more than the fold removal saves.
-    ``'auto'`` therefore stays ``'xla'``; ``'pallas'`` (v4) and
-    ``'hybrid'`` (v5) remain selectable and oracle-tested.
-    """
-    if matvec_impl != "auto":
-        return matvec_impl
-    return "xla"
 
 
 def solve_frame_pair(
@@ -136,7 +97,6 @@ def solve_frame_pair(
     max_iterations: int = 1000,
     high_precision_reductions: bool = True,
     refinement_restarts: int = 8,
-    matvec_impl: str = "auto",
     tol_floor: float = 300.0,
     refinement_rtol: float = 0.2,
     matvec_factory=None,
@@ -149,19 +109,10 @@ def solve_frame_pair(
     and ``info`` is a dict of scalars (iterations, residual_norm,
     converged, functionals).
 
-    ``matvec_impl``: ``'xla'`` (pure-jnp fused stencil — what ``'auto'``
-    resolves to; measured at ~90% of HBM peak on its actual traffic, see
-    ``_resolve_matvec_impl``), ``'pallas'`` (v4 fused VMEM-tiled kernel
-    with on-the-fly coefficients, in-kernel mirror folds, and the whole
-    Krylov state in one interior-aligned container layout — see
-    ops.pallas_kernels; supports one level of vmap), or ``'hybrid'``
-    (v5: plain Pallas core + XLA boundary ring — the fastest raw kernel
-    measured, but the ring overwrite costs more than the fold removal
-    saves; kept selectable for future Mosaic/XLA DUS improvements).
-    Under spatial tiling the matvec runs as a shard_map with a single
-    two-phase ppermute halo exchange per application instead — the
-    sharded path passes ``matvec_factory`` (parallel.pallas_spmd) and
-    ``matvec_impl='xla'``.
+    The matvec is the XLA-fused stencil ``elop.el_matvec_reduced``.
+    Under spatial tiling it runs as a shard_map with a single two-phase
+    ppermute halo exchange per application instead — the sharded path
+    passes ``matvec_factory`` (parallel.halo).
 
     Intensity normalisation: the EL system built from ``(I/s,
     speed_alpha/s^2, remodelling_alpha)`` has the exact solution
@@ -171,18 +122,18 @@ def solve_frame_pair(
     keeps coefficients O(1): with raw microscopy intensities (~1e2) and
     practice alphas (~1e3) the unnormalised f32 Krylov recurrences mix
     magnitudes of 1e0..1e8 and stall (512^2) or overflow to NaN (1024^2)
-    while the f64 solve converges fine — measured, see bench.py notes.
+    while the f64 solve converges fine.
     """
-    # TPU f32 matmuls default to reduced-precision MXU passes; every
-    # matmul/einsum traced in the solve (Gram-Schmidt projections, MG
-    # stencil applications and probing, coarse LU/triangular solves) is
-    # precision-critical, so pin HIGHEST for the whole trace.  The fused
-    # Pallas kernel and all elementwise stencil math are unaffected.
+    # f32 matmuls may run in reduced precision (TF32 on the GPU's tensor
+    # cores, about three decimal digits); every matmul traced in the solve
+    # (Gram-Schmidt projections, coarse LU/triangular solves) is
+    # precision-critical, so pin HIGHEST for the whole trace.  Elementwise
+    # stencil math is unaffected.
     with jax.default_matmul_precision("highest"):
         return _solve_frame_pair_impl(
             previous_frame, current_frame, u0, speed_alpha, remodelling_alpha,
             dy_mode, method, preconditioner, rtol, max_iterations,
-            high_precision_reductions, refinement_restarts, matvec_impl,
+            high_precision_reductions, refinement_restarts,
             tol_floor, refinement_rtol, matvec_factory, gmres_restart,
             refinement_exit_factor,
         )
@@ -201,7 +152,6 @@ def _solve_frame_pair_impl(
     max_iterations,
     high_precision_reductions,
     refinement_restarts,
-    matvec_impl,
     tol_floor,
     refinement_rtol,
     matvec_factory,
@@ -232,89 +182,45 @@ def _solve_frame_pair_impl(
     m, n = b_red.shape[1], b_red.shape[2]
     method = resolve_method(method, m, n)
 
-    resolved_impl = _resolve_matvec_impl(matvec_impl, n, b_red.dtype)
-    use_pallas = matvec_factory is None and resolved_impl in ("pallas", "hybrid")
-
     if matvec_factory is not None:
-        # Sharded-SPMD fused kernel (parallel.pallas_spmd): the factory
-        # closes over the mesh and returns an interior-layout matvec that
-        # shard_maps the fused Pallas kernel with ppermute halo exchange.
-        # Krylov state stays in interior layout (the GSPMD path's
-        # layouts); only the matvec drops into manual SPMD.
-        aops = None
+        # Spatially tiled solve (parallel.halo): the factory closes over
+        # the mesh and returns an interior-layout matvec that shard_maps
+        # the stencil with ppermute halo exchange.  Krylov state stays in
+        # interior layout under GSPMD; only the matvec drops into manual
+        # SPMD.
         matvec = matvec_factory(
             previous_frame, speed_alpha, remodelling_alpha, dy_mode
         )
-        b_K = b_red
-        x0_K = u0_red
-    elif use_pallas:
-        # v3 fused-kernel path: mirror rows are folded INTO the kernel, so
-        # the whole Krylov iteration lives in ONE zero-padded interior-
-        # aligned container layout — matvec is C -> C and no extension /
-        # pad copies remain anywhere in the loop (the round-3 R -> P
-        # bridge cost 5x the kernel itself; see ops.pallas_kernels).
-        from opticalflow_tpu.ops import pallas_kernels
-
-        _factory = (
-            pallas_kernels.make_hybrid_ops
-            if resolved_impl == "hybrid"
-            else pallas_kernels.make_aligned_ops
-        )
-        aops = _factory(
-            previous_frame, speed_alpha, remodelling_alpha, dy_mode
-        )
-        matvec = aops.matvec
-        b_K = aops.pad_field(b_red)
-        x0_K = aops.pad_field(u0_red)
     else:
-        aops = None
         matvec = xla_matvec
-        b_K = b_red
-        x0_K = u0_red
 
     # Smoothing strength scales with the grid: 2 damped block-Jacobi
-    # sweeps per half-cycle below 500 interior points, 4 at/above.
-    # Measured at 1024^2 (bench/refine1024_probe.py): with sweeps=2 the
-    # f32 FGMRES corrections stall at ~5x tol — the Arnoldi least-squares
-    # estimate says "reduced 5x" while the true residual does not move,
-    # an f32 Hessenberg-algebra breakdown on the poorly-conditioned
-    # preconditioned system — while sweeps=4 keeps the corrections
-    # contracting to ~0.5x tol (converged) AND cuts main-solve iterations
-    # 95 -> 66.
+    # sweeps per half-cycle below 500 interior points, 4 at/above.  At
+    # 1024^2 two sweeps leave the f32 FGMRES correction solves stalled
+    # above tol — the Arnoldi least-squares estimate reports a reduction
+    # the true residual does not show, an f32 Hessenberg-algebra
+    # breakdown on the poorly-conditioned preconditioned system — while
+    # four keep the corrections contracting and cut main-solve
+    # iterations (checked against the f64 oracle by
+    # tests/test_accuracy_1024.py and chip_smoke.py's embryo_1024 phase).
     mg_sweeps = 2 if max(m, n) < 500 else 4
 
     if preconditioner == "block_jacobi":
-        bj = functools.partial(elop.block_jacobi_inverse_apply_interior, pair.coeffs)
-        if use_pallas:
-            precond = lambda r: aops.pad_field(bj(aops.slice_field(r)))
-        else:
-            precond = bj
+        precond = functools.partial(
+            elop.block_jacobi_inverse_apply_interior, pair.coeffs
+        )
     elif preconditioner == "multigrid":
-        # hierarchy probing vmaps the fine matvec over 27 comb vectors —
-        # always the XLA operator (the pallas custom_vmap rule supports a
-        # single vmap level, consumed by the frame-pair batch); in pallas
-        # mode the cycle's fine level runs on the fused kernel in container
-        # layout (v_cycle_aligned), coarse levels stay on the (small) XLA
-        # path.
+        # hierarchy probing vmaps the fine matvec over 27 comb vectors, so
+        # it always probes the plain XLA operator; a tiled solve smooths
+        # its fine level with the halo-exchange matvec.
         with jax.named_scope("mg_setup"):
             hierarchy = multigrid.setup(
                 xla_matvec, elop.diag_blocks(pair.coeffs), m, n, b_red.dtype,
                 fine_smoother_matvec=matvec if matvec_factory is not None else None,
             )
-        if use_pallas:
-            binv_c = jnp.pad(
-                hierarchy.levels[0].binv,
-                ((0, b_K.shape[1] - m), (0, b_K.shape[2] - n), (0, 0), (0, 0)),
-            )
-            precond = functools.partial(
-                multigrid.v_cycle_aligned, hierarchy, aops, binv_c,
-                sweeps=mg_sweeps,
-            )
-        else:
-            precond = functools.partial(multigrid.v_cycle, hierarchy,
-                                        sweeps=mg_sweeps)
+        precond = functools.partial(multigrid.v_cycle, hierarchy,
+                                    sweeps=mg_sweeps)
     elif preconditioner == "none":
-        # layouts agree in every mode (C -> C or interior -> interior)
         precond = None
     else:
         raise ValueError(f"unknown preconditioner {preconditioner!r}")
@@ -327,8 +233,8 @@ def _solve_frame_pair_impl(
     with jax.named_scope("krylov_main"):
         res = solver_fn(
             matvec,
-            b_K,
-            x0=x0_K,
+            b_red,
+            x0=u0_red,
             precond=precond,
             rtol=rtol,
             max_iterations=max_iterations,
@@ -336,12 +242,13 @@ def _solve_frame_pair_impl(
             tol_floor_eps_multiple=tol_floor,
         )
 
-    # Mixed-precision iterative refinement (the TPU answer to PETSc's f64
-    # solve).  Two f32 noise floors block accuracy beyond ~1e-3 px EPE:
-    # the cancellative f32 matvec evaluation (true residual stalls ~2e-4
-    # relative) and the f32 *computation* of the coefficient planes (the
-    # perturbed system's exact solution is already ~4.6e-4 px away).  So
-    # each refinement step evaluates b - A x against double-float system
+    # Mixed-precision iterative refinement (the f32 pipeline's answer to
+    # PETSc's f64 solve).  Two f32 noise floors block accuracy near the
+    # 1e-3 px EPE target: the cancellative f32 matvec evaluation (the true
+    # residual stalls far above f64 quality) and the f32 *computation* of
+    # the coefficient planes (the perturbed system's exact solution is
+    # already a few 1e-4 px away).  So each refinement step evaluates
+    # b - A x against double-float system
     # data (elop.compute_frame_pair_data_df — coefficients, RHS, and the
     # normalisation division all in pair arithmetic, exact to ~eps^2),
     # with x itself carried as a hi+lo pair, then solves the correction
@@ -352,13 +259,10 @@ def _solve_frame_pair_impl(
     # true residual ~refinement_rtol x and the fixed point is the
     # f64-quality solution; refinement steps also act as BiCGStab
     # *restarts*, recovering pairs where f32 recurrence breakdown stalls
-    # the main solve far above tolerance (measured at 48^2: main solve
-    # stalls at 1.4e-2 relative on a boundary-heavy pair, four refinement
-    # steps reach EPE 1.8e-5 px; at 256^2 f32 vs the f64 direct solve:
-    # EPE 2.4e-3 px (no refinement) -> <3e-4 px; see bench.py /
-    # tests/test_accuracy_gate.py).  `converged` is judged on the df32
-    # true residual — a stricter, honest criterion (plain f32 evaluation
-    # could not even measure residuals this small).
+    # the main solve far above tolerance (tests/test_accuracy_gate.py
+    # holds the refined solve to the f64 direct solve).  `converged` is
+    # judged on the df32 true residual — a stricter, honest criterion
+    # (plain f32 evaluation could not even measure residuals this small).
     iterations = res.iterations
     residual_norm = res.residual_norm
     converged = res.converged
@@ -374,20 +278,18 @@ def _solve_frame_pair_impl(
         )
         b_norm = jnp.sqrt(jnp.sum(b_red * b_red))
         tol_main = eff_rtol * b_norm
-        x_hi0 = aops.slice_field(res.x) if use_pallas else res.x
+        x_hi0 = res.x
         x_lo0 = jnp.zeros_like(x_hi0)
         r_hi0 = elop.el_residual_df(dfd, x_hi0, x_lo0)
         r_norm0 = jnp.sqrt(jnp.sum(r_hi0.astype(b_norm.dtype) ** 2))
 
         if refinement_exit_factor is None:
             # Scale-aware default (same size gate as resolve_method):
-            # 0.1 suffices at bench scale (256^2: EPE ~1e-4 px, tuned in
-            # bench/refine_tune.py), but at config-2 scale the worse
-            # conditioning turns the same residual slack into EPE above
-            # the target — measured at 1024^2 vs an f64 FGMRES rtol-1e-10
-            # oracle (tests/test_accuracy_1024.py): exit 0.1 -> residual
-            # 3.3e-6 rel, EPE 1.325e-3 px (FAILS <1e-3); exit 0.03 ->
-            # 6.6e-7 rel, EPE 1.101e-4 px at +23% iterations (70 -> 86).
+            # 0.1 suffices at bench scale (256^2), but at config-2 scale
+            # the worse conditioning turns the same residual slack into
+            # EPE above the 1e-3 px target against an f64 FGMRES
+            # rtol-1e-10 oracle (tests/test_accuracy_1024.py), which 0.03
+            # meets at the cost of more correction iterations.
             refinement_exit_factor = 0.1 if max(m, n) < 500 else 0.03
         exit_tol = refinement_exit_factor * tol_main
 
@@ -397,17 +299,16 @@ def _solve_frame_pair_impl(
             # reported tolerance so the EPE keeps margin under the <1e-3 px
             # target instead of landing exactly on the tolerance boundary
             # (each extra factor of ~refinement_rtol costs one cheap
-            # correction solve; tuned on-chip, see bench/refine_tune.py).
+            # correction solve).
             # Stall guard: when a step makes essentially NO progress
             # (<0.1%) the f32 correction solves have hit their attainable
-            # floor (the est/true Hessenberg mismatch stalls are EXACT —
-            # ratio 1.000, see bench/refine1024_probe.py) — more restarts
-            # cannot help, stop burning them.  The threshold is
-            # deliberately this tight: refinement steps double as
+            # floor (the est/true Hessenberg mismatch stalls are exact) —
+            # more restarts cannot help, stop burning them.  The threshold
+            # is deliberately this tight: refinement steps double as
             # BiCGStab-breakdown restarts, and a recovering pair may
-            # contract slowly for several steps before the cliff (a 0.9
-            # threshold was measured to kill exactly such a pair at 128^2
-            # — EPE 0.71 px with the guard vs 1e-5 px without).
+            # contract slowly for several steps before the cliff (a looser
+            # 0.9 threshold stops exactly such a pair far from the
+            # solution).
             return jnp.logical_and(
                 jnp.logical_and(step < refinement_restarts, r_norm > exit_tol),
                 r_norm < 0.999 * r_prev,
@@ -472,7 +373,7 @@ def _solve_frame_pair_impl(
         converged = r_norm <= tol_main
         x_int = x_hi + x_lo
     else:
-        x_int = aops.slice_field(res.x) if use_pallas else res.x
+        x_int = res.x
     res = krylov.KrylovResult(
         x=res.x, iterations=iterations, residual_norm=residual_norm, converged=converged
     )
@@ -500,7 +401,7 @@ def _solve_frame_pair_impl(
 @functools.partial(
     jax.jit,
     static_argnames=("dy_mode", "method", "preconditioner", "max_iterations",
-                     "high_precision_reductions", "warm_start", "matvec_impl",
+                     "high_precision_reductions", "warm_start",
                      "refinement_restarts", "gmres_restart"),
 )
 def _solve_movie(
@@ -515,7 +416,6 @@ def _solve_movie(
     max_iterations,
     high_precision_reductions,
     warm_start,
-    matvec_impl="auto",
     refinement_restarts=8,
     tol_floor=300.0,
     refinement_rtol=0.2,
@@ -535,7 +435,6 @@ def _solve_movie(
         rtol=rtol,
         max_iterations=max_iterations,
         high_precision_reductions=high_precision_reductions,
-        matvec_impl=matvec_impl,
         refinement_restarts=refinement_restarts,
         tol_floor=tol_floor,
         refinement_rtol=refinement_rtol,
@@ -561,7 +460,7 @@ def _solve_movie(
         # their initial guess.  Consecutive microscopy frames are highly
         # correlated, so the broadcast guess removes most of the Krylov
         # work of every pair but the first while keeping the batch
-        # embarrassingly parallel (measured iteration counts in bench.py).
+        # embarrassingly parallel.
         u_first, info_first = pair_solver(prev_frames[0], cur_frames[0], u_init)
         if prev_frames.shape[0] > 1:
             u_rest, infos_rest = jax.vmap(lambda p, c: pair_solver(p, c, u_first))(
@@ -648,7 +547,6 @@ def variational_optical_flow(
             solver.max_iterations,
             solver.high_precision_reductions,
             warm_start,
-            solver.matvec,
             solver.refinement_restarts,
             solver.dtype_tol_floor,
             solver.refinement_rtol,
@@ -720,7 +618,7 @@ def profile_solve_phases(
 
     Closes SURVEY §5's tracing item (the reference prints ad-hoc spans
     around assembly / translate / solve, ref optical_flow.py:831,
-    1073-1076, 1106-1109, 1149-1157): phases here are the TPU pipeline's —
+    1073-1076, 1106-1109, 1149-1157): phases here are the device pipeline's —
     derivative/coefficient build, multigrid setup, the main Krylov loop,
     mixed-precision refinement, and the device->host transfer.
 
@@ -770,8 +668,7 @@ def profile_solve_phases(
             preconditioner=solver.preconditioner, rtol=solver.rtol,
             max_iterations=solver.max_iterations,
             high_precision_reductions=solver.high_precision_reductions,
-            refinement_restarts=0, matvec_impl=solver.matvec,
-            tol_floor=solver.dtype_tol_floor,
+            refinement_restarts=0, tol_floor=solver.dtype_tol_floor,
         )
 
     def phase_full(p, c):
@@ -781,7 +678,7 @@ def profile_solve_phases(
             max_iterations=solver.max_iterations,
             high_precision_reductions=solver.high_precision_reductions,
             refinement_restarts=solver.refinement_restarts,
-            matvec_impl=solver.matvec, tol_floor=solver.dtype_tol_floor,
+            tol_floor=solver.dtype_tol_floor,
             refinement_rtol=solver.refinement_rtol,
         )
 

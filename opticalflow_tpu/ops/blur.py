@@ -1,6 +1,6 @@
 """On-device Gaussian blur.
 
-TPU-native equivalent of the reference's per-frame
+On-device equivalent of the reference's per-frame
 ``skimage.filters.gaussian(frame, sigma, preserve_range=True)`` loop
 (/root/reference/source/optical_flow.py:282-306).  skimage delegates to
 ``scipy.ndimage.gaussian_filter`` with ``mode='nearest'`` (edge replicate)
@@ -51,6 +51,9 @@ def _correlate_axis(movie: jnp.ndarray, kernel: jnp.ndarray, axis: int) -> jnp.n
         window_strides=(1, 1),
         padding="VALID",
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
+        # f32 convolutions may otherwise run in TF32 on the GPU (about
+        # three decimal digits), far from scipy's f64 result
+        precision=lax.Precision.HIGHEST,
     )
     return out[:, 0, :, :]
 

@@ -2,7 +2,7 @@
 
 The reference's box-method kernel sums image products over a ``box_size``
 neighbourhood clipped at the image boundary, per pixel
-(/root/reference/source/optical_flow.py:102-117).  On TPU that per-pixel
+(/root/reference/source/optical_flow.py:102-117).  On device that per-pixel
 loop becomes a separable windowed reduction: two 1-D
 ``lax.reduce_window`` passes with zero ("SAME") padding reproduce the
 clipped sums exactly, in O(box) adds per pixel, fully fused by XLA.
@@ -47,8 +47,10 @@ def box_sum_dynamic(x: jnp.ndarray, half, max_half: int) -> jnp.ndarray:
     def correlate(m, axis):
         rhs = taps.reshape((1, 1) + ((-1, 1) if axis == 0 else (1, -1)))
         pad = [(max_half, max_half), (0, 0)] if axis == 0 else [(0, 0), (max_half, max_half)]
+        # HIGHEST: no TF32 rounding of the f32 sums on the GPU
         return lax.conv_general_dilated(
-            m, rhs, (1, 1), pad, dimension_numbers=("NCHW", "OIHW", "NCHW")
+            m, rhs, (1, 1), pad, dimension_numbers=("NCHW", "OIHW", "NCHW"),
+            precision=lax.Precision.HIGHEST,
         )
 
     out = correlate(correlate(lhs, 0), 1)

@@ -1,6 +1,6 @@
 """On-device CLAHE (contrast-limited adaptive histogram equalisation).
 
-TPU-native equivalent of the reference's ``apply_clahe``
+On-device equivalent of the reference's ``apply_clahe``
 (/root/reference/source/optical_flow.py:340-374), which runs cv2's CLAHE on
 uint16 frames with a tile grid scaled by the image aspect ratio.
 

@@ -4,13 +4,13 @@ Why this exists: the EL matvec is catastrophically cancellative — individual
 stencil terms are O(alpha * u) ~ 0.1-1 in normalised units while the result
 (and the RHS) is O(1e-4), so a plain f32 evaluation of ``b - A x`` carries
 ~1e3 * eps(f32) of relative noise.  That noise — not the Krylov iteration —
-is the measured accuracy floor of the f32 solve (true relative residual
-stalls at ~2.4e-4 no matter how many restarts; see bench/accuracy_sweep.py
-and the round-3 notes in solve/krylov.py).  The reference never faces this
-because PETSc solves in f64 end-to-end (ref optical_flow.py:1096-1147);
-TPUs have no fast f64, so instead the *residual for iterative refinement*
-is evaluated in error-free-transformed f32 arithmetic (~2x the significand
-bits), which restores the f64-quality residual at pure-VPU cost.
+is the accuracy floor of the f32 solve (the true relative residual stalls
+far above f64 quality no matter how many restarts).  The reference never
+faces this because PETSc solves in f64 end-to-end (ref
+optical_flow.py:1096-1147); here the Krylov iteration stays in f32 and
+only the *residual for iterative refinement* is evaluated in
+error-free-transformed f32 arithmetic (~2x the significand bits), which
+restores the f64-quality residual with f32 elementwise work.
 
 The primitives are the classical error-free transforms (Dekker 1971,
 Knuth TAOCP v2) — exact under IEEE round-to-nearest, which XLA preserves

@@ -1,6 +1,6 @@
 """Matrix-free Euler-Lagrange operator for variational optical flow.
 
-This is the TPU-native replacement for the reference's host-side sparse
+This is the on-device replacement for the reference's host-side sparse
 assembly + PETSc matrix (/root/reference/source/optical_flow.py:829-1104).
 The reference builds an explicit ``3*Ni*Nj x 3*Ni*Nj`` sparse matrix whose
 entries are all local functions of the previous frame I and its
@@ -203,7 +203,7 @@ def el_matvec(coeffs: ELCoefficients, u: jnp.ndarray) -> jnp.ndarray:
 def block_jacobi_inverse_apply(coeffs: ELCoefficients, r: jnp.ndarray) -> jnp.ndarray:
     """Apply the inverse of the per-pixel 3x3 diagonal block of A.
 
-    This is the TPU-native analogue of PETSc's block-Jacobi with block size
+    This is the on-device analogue of PETSc's block-Jacobi with block size
     3 (ref :1104, :1090).  The interior block is
 
         [[a,     c,     0 ],
@@ -238,7 +238,7 @@ def block_jacobi_inverse_apply(coeffs: ELCoefficients, r: jnp.ndarray) -> jnp.nd
 # (edges mirror one interior value; corners are the sum of two edge mirrors,
 # i.e. twice the diagonal interior value).  Folding them in turns the full
 # system into a pure 9-point / 3-field stencil system on the interior grid
-# — the natural form for multigrid and for Pallas tiling.  The reduction is
+# — the natural form for multigrid and for tiling.  The reduction is
 # verified exact against the assembled full system in tests/test_elop.py.
 # ---------------------------------------------------------------------------
 
@@ -280,118 +280,20 @@ def el_matvec_reduced(coeffs: ELCoefficients, u_int: jnp.ndarray) -> jnp.ndarray
 
 
 # ---------------------------------------------------------------------------
-# Boundary-ring application of the reduced operator on thin strips.
-#
-# Used by the v5 hybrid Pallas path (ops.pallas_kernels.make_hybrid_ops):
-# the Pallas kernel computes the PLAIN stencil (reads outside the interior
-# are zero — no mirror-fold selects on the VPU, which cost ~2x the stencil
-# itself in the v4 kernel), and the one-pixel boundary ring of the output —
-# the only rows where the mirror semantics matter — is recomputed here in
-# XLA from O(m+n) strip slices and overwritten.  Exactness vs
-# el_matvec_reduced is tested in tests/test_pallas.py.
-# ---------------------------------------------------------------------------
-
-
-def _slice_coeffs(c: ELCoefficients, rs, cs) -> ELCoefficients:
-    """Slice every coefficient plane (scalars pass through)."""
-    return ELCoefficients(
-        diag_x=c.diag_x[rs, cs], diag_y=c.diag_y[rs, cs], cross=c.cross[rs, cs],
-        adv_xm=c.adv_xm[rs, cs], adv_xp=c.adv_xp[rs, cs],
-        adv_ym=c.adv_ym[rs, cs], adv_yp=c.adv_yp[rs, cs],
-        gx=c.gx[rs, cs], gy=c.gy[rs, cs], quart=c.quart[rs, cs],
-        half_I=c.half_I[rs, cs], dIdx=c.dIdx[rs, cs], dIdy=c.dIdy[rs, cs],
-        speed_alpha=c.speed_alpha, remodelling_alpha=c.remodelling_alpha,
-    )
-
-
-class RingCoeffs(NamedTuple):
-    """Coefficient strips for the four boundary-ring rows/cols, sliced once
-    per frame pair (top/bottom planes are (1, n); left/right are (m, 1))."""
-
-    top: ELCoefficients
-    bottom: ELCoefficients
-    left: ELCoefficients
-    right: ELCoefficients
-
-
-def ring_coeffs(c: ELCoefficients) -> RingCoeffs:
-    sl = slice(None)
-    return RingCoeffs(
-        top=_slice_coeffs(c, slice(0, 1), sl),
-        bottom=_slice_coeffs(c, slice(-1, None), sl),
-        left=_slice_coeffs(c, sl, slice(0, 1)),
-        right=_slice_coeffs(c, sl, slice(-1, None)),
-    )
-
-
-def ring_apply(rc: RingCoeffs, u_int: jnp.ndarray):
-    """Reduced-matvec values on the boundary ring of the interior grid.
-
-    ``u_int``: (3, m, n).  Returns ``(top, bottom, left, right)`` with
-    shapes (3, n), (3, n), (3, m), (3, m); the four corner pixels appear
-    in both their strips with identical values.  Each strip is computed by
-    ``interior_apply`` on a 3-row/3-col extended slab built from two
-    interior strips — O(m+n) work total.
-    """
-    x = u_int
-
-    def colext(row, corner):
-        # interior row (3, n) -> extended row (3, n+2) with col mirrors
-        return jnp.concatenate(
-            [corner * row[:, 1:2], row, corner * row[:, -2:-1]], axis=1
-        )
-
-    def rowext(col, corner):
-        # interior col (3, m) -> extended col (3, m+2) with row mirrors
-        return jnp.concatenate(
-            [corner * col[:, 1:2], col, corner * col[:, -2:-1]], axis=1
-        )
-
-    # top slab: ext rows 0..2 (ext row i+1 = interior row i; ext row 0
-    # mirrors interior row 1, global corners doubled)
-    slab_top = jnp.stack(
-        [colext(x[:, 1], 2.0), colext(x[:, 0], 1.0), colext(x[:, 1], 1.0)], axis=1
-    )
-    top = interior_apply(rc.top, slab_top)[:, 0]
-
-    # bottom slab: ext rows m-1..m+1 (ext row m+1 mirrors interior m-2)
-    slab_bot = jnp.stack(
-        [colext(x[:, -2], 1.0), colext(x[:, -1], 1.0), colext(x[:, -2], 2.0)], axis=1
-    )
-    bottom = interior_apply(rc.bottom, slab_bot)[:, 0]
-
-    # left slab: ext cols 0..2 over all ext rows
-    slab_left = jnp.stack(
-        [rowext(x[:, :, 1], 2.0), rowext(x[:, :, 0], 1.0), rowext(x[:, :, 1], 1.0)],
-        axis=2,
-    )
-    left = interior_apply(rc.left, slab_left)[:, :, 0]
-
-    # right slab: ext cols n-1..n+1
-    slab_right = jnp.stack(
-        [rowext(x[:, :, -2], 1.0), rowext(x[:, :, -1], 1.0), rowext(x[:, :, -2], 2.0)],
-        axis=2,
-    )
-    right = interior_apply(rc.right, slab_right)[:, :, 0]
-
-    return top, bottom, left, right
-
-
-# ---------------------------------------------------------------------------
 # Double-float (df32) exact system data + residual for iterative refinement
 #
 # Why: (a) the plain f32 matvec is catastrophically cancellative (stencil
 # terms O(alpha*u) cancel to a result ~1e3x smaller), flooring the true
-# attainable residual of the f32 Krylov solve at ~2e-4 relative; (b) the
-# f32 *computation* of the coefficient planes alone perturbs the system
-# enough to move the exact solution by ~4.6e-4 px at 256^2 (measured vs
-# f64-computed coefficients of the same f32 frames — microscopy data is
-# integer-valued, so the frames themselves are exact in f32).  Both are
+# attainable residual of the f32 Krylov solve far above f64 quality; (b)
+# the f32 *computation* of the coefficient planes alone perturbs the
+# system enough to move the exact solution by a few 1e-4 px at 256^2
+# (vs f64-computed coefficients of the same f32 frames — microscopy data
+# is integer-valued, so the frames themselves are exact in f32).  Both are
 # fixed by evaluating the refinement residual against system data computed
 # in double-float compensated arithmetic (ops.df32): the refinement then
 # converges to the f64-quality solution while every Krylov iteration stays
-# pure f32.  This is the TPU answer to the reference's f64 PETSc solve
-# (ref optical_flow.py:1096-1147) on hardware without fast f64.
+# pure f32.  This is the f32 pipeline's answer to the reference's f64
+# PETSc solve (ref optical_flow.py:1096-1147).
 # ---------------------------------------------------------------------------
 
 
@@ -595,12 +497,12 @@ def el_matvec_df(dfd: ELPairDataDF, x: jnp.ndarray) -> jnp.ndarray:
     Why it exists: at 1024^2 the velocity block's condition number is
     ~1e6, so the *plain f32* matvec cannot resolve residuals of the
     smooth (near-null Laplacian) modes — eps * kappa ~ 0.1 — and the
-    refinement's f32 correction solves stall around 1e-3 relative
-    (measured: GMRES+MG converges at <= 512^2 but plateaus at 2e-3
-    absolute at 1024^2).  Solving the correction systems against the df32
-    operator restores the 'refinement contracts by rtol per step'
-    guarantee independent of kappa * eps_f32.  Pure VPU pair arithmetic;
-    used only inside refinement, never in the main Krylov loop.
+    refinement's f32 correction solves stall (GMRES+MG converges at
+    <= 512^2 but plateaus above tolerance at 1024^2).  Solving the
+    correction systems against the df32 operator restores the 'refinement
+    contracts by rtol per step' guarantee independent of kappa * eps_f32.
+    Pure elementwise pair arithmetic; used only inside refinement, never
+    in the main Krylov loop.
     """
     zero = jnp.zeros_like(dfd.rhs_hi)
     dfd0 = dfd._replace(rhs_hi=zero, rhs_lo=zero)

@@ -41,9 +41,11 @@ def _area_weights(n_in: int, n_out: int, scale=None) -> np.ndarray:
 
 @functools.partial(jax.jit, static_argnames=("out_x", "out_y"))
 def _resize_movie_impl(movie, wx, wy, out_x, out_y):
-    # (T, X, Y) -> (T, out_x, Y) -> (T, out_x, out_y) via two contractions
-    out = jnp.einsum("oi,tij->toj", wx, movie)
-    out = jnp.einsum("oj,tij->tio", wy, out)
+    # (T, X, Y) -> (T, out_x, Y) -> (T, out_x, out_y) via two contractions;
+    # HIGHEST keeps f32 contractions out of TF32 on the GPU
+    hi = jax.lax.Precision.HIGHEST
+    out = jnp.einsum("oi,tij->toj", wx, movie, precision=hi)
+    out = jnp.einsum("oj,tij->tio", wy, out, precision=hi)
     return out
 
 

@@ -1,6 +1,6 @@
 """On-device adaptive thresholding.
 
-TPU-native equivalent of the reference's ``apply_adaptive_threshold``
+On-device equivalent of the reference's ``apply_adaptive_threshold``
 (/root/reference/source/optical_flow.py:308-338): rescale the movie to
 uint8 range, then binarise each pixel against the mean of its
 ``window_size`` neighbourhood minus ``threshold`` (cv2

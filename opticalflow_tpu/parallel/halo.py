@@ -1,12 +1,8 @@
-"""Sharded (SPMD) fused Pallas matvec: per-chip speed-of-light stencils
-under spatial tiling (BASELINE config 4; SURVEY.md section 2.4 design).
+"""Halo-exchange stencil matvec for spatially tiled solves (BASELINE
+config 4; SURVEY.md section 2.4 design).
 
-The single-chip solver keeps its Krylov state in the fused kernel's
-aligned layouts (ops.pallas_kernels.PaddedOps).  Under GSPMD spatial
-tiling that kernel cannot run — it has no SPMD partitioning rule — so the
-round-2 sharded path silently downgraded to the XLA stencil.  This module
-provides the missing piece: a ``shard_map``-wrapped matvec in which every
-device
+Under spatial tiling the reduced-system matvec runs as a ``shard_map`` in
+which every device
 
 1. exchanges 1-pixel halos of the field and of the previous-frame plane
    with its (tx, ty) mesh neighbours via ``jax.lax.ppermute`` (two-phase:
@@ -16,18 +12,18 @@ device
    (edge mirrors one interior value, global corners take 2x the diagonal
    value — ops.elop.extend_interior), and the true frame boundary rows
    (carried as replicated 1-D arrays — O(n) bytes), and
-3. runs the fused VMEM-tiled kernel (ops.pallas_kernels) on its local
+3. rebuilds the local EL coefficients and applies the stencil to its
    halo-extended block.
 
 The Krylov iteration outside stays in plain interior layout under GSPMD
 (dot products become psums automatically); only the matvec drops into
 manual SPMD.  Frame-pair batching composes via
-``jax.vmap(..., spmd_axis_name='frames')``.
+``jax.vmap(..., spmd_axis_name='frames')``.  The permutes are ordinary
+XLA collectives, which the GPU backend hands to NCCL.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Callable
 
 import jax
@@ -130,32 +126,6 @@ def _exchange_frame(i_loc: jnp.ndarray, f_top: jnp.ndarray,
     return jnp.concatenate([lo_r[None, :], fw, hi_r[None, :]], axis=0)
 
 
-def _local_kernel_matvec(i_loc, f_top, f_bottom, f_left, f_right,
-                         scalars, meta, u_loc):
-    """Per-device body: halo exchange + local fused kernel application."""
-    from opticalflow_tpu.ops import pallas_kernels as pk
-
-    m_loc, n_loc = i_loc.shape
-    f_ext = _exchange_frame(i_loc, f_top, f_bottom, f_left, f_right)
-    u_ext = _exchange_and_extend_u(u_loc)
-
-    mp = pk._round_up(m_loc, pk.BM)
-    np_u = pk._round_up(n_loc + 2, pk._LANE)
-    i_p = jnp.pad(
-        f_ext,
-        ((pk._ROW_OFFSET, mp + 2 * pk._SUB - pk._ROW_OFFSET - (m_loc + 2)),
-         (0, np_u - (n_loc + 2))),
-    )
-    u_p = jnp.pad(
-        u_ext,
-        ((0, 0),
-         (pk._ROW_OFFSET, mp + 2 * pk._SUB - pk._ROW_OFFSET - (m_loc + 2)),
-         (0, np_u - (n_loc + 2))),
-    )
-    out = pk._padded_matvec(i_p, scalars, meta, u_p)
-    return out[:, :m_loc, :n_loc]
-
-
 def make_sharded_xla_matvec(
     mesh: Mesh,
     previous_frame: jnp.ndarray,
@@ -163,19 +133,14 @@ def make_sharded_xla_matvec(
     remodelling_alpha,
     dy_mode: str = "compat",
 ) -> Callable:
-    """One-exchange-per-matvec sharded XLA stencil matvec (round 4).
+    """One-exchange-per-application sharded stencil matvec.
 
     Why this exists: letting GSPMD partition ``elop.el_matvec_reduced``
     inserts a collective for EVERY stencil shift — counted in the
     compiled HLO at 64^2 on a (tx=4, ty=2) mesh: **51 collective-permutes
-    + 3 all-gathers + 162 dynamic-slices per single matvec application**.
-    Each collective carries fixed software overhead, which produced the
-    round-3 tile-axis weak-scaling cliff (MULTICHIP_r03: 50x wall-time
-    blow-up at 8 virtual devices; the frames axis, which needs no
-    per-shift collectives, scaled fine).  On real ICI the per-permute
-    latency is far smaller, but 51 serialised permutes per matvec x ~12
-    applications per Krylov iteration would still dominate small
-    per-chip tiles.
+    + 3 all-gathers + 162 dynamic-slices per single matvec application**,
+    each with a fixed launch and synchronisation cost, at ~12 applications
+    per Krylov iteration.
 
     The fix is the classic halo-exchange structure (SURVEY section 2.4):
     a ``shard_map`` in which each device exchanges its 1-pixel field halo
@@ -183,10 +148,11 @@ def make_sharded_xla_matvec(
     application — 8 ppermutes total vs GSPMD's 51 — and then rebuilds
     the local EL coefficients and applies the whole 9-point/3-field
     stencil locally.  Krylov state remains in plain GSPMD interior
-    layout; dots psum as before.  Same signature as
-    :func:`make_sharded_kernel_matvec`, no Pallas dependency — the
-    portable sharded matvec (used by the CPU test mesh and as the TPU
-    fallback where the fused kernel's width limit bites).
+    layout; dots psum as before.
+
+    ``previous_frame``: the full (m+2, n+2) *normalised* frame (as inside
+    flow.variational.solve_frame_pair).  Requires m % tx == 0 and
+    n % ty == 0 (no implicit padding).
     """
     from opticalflow_tpu.ops import elop
 
@@ -220,10 +186,10 @@ def make_sharded_xla_matvec(
         # field (8 ppermutes total), then a purely local coefficient
         # build + stencil application — mirror semantics at global edges
         # included.  The coefficient build repeats per application (pure
-        # local VPU work, ~15 elementwise ops on the block) because a
+        # local elementwise work, ~15 ops on the block) because a
         # factory-time shard_map whose outputs are captured inside the
         # solver's vmapped while_loops does not lower; this per-call
-        # structure is the one the pallas factory uses and lowers fine.
+        # structure lowers fine.
         f_ext = _exchange_frame(i_loc, top, bottom, left, right)
         pair = elop.compute_frame_pair_data(f_ext, f_ext, sc[0], sc[1], dy_mode)
         u_ext = _exchange_and_extend_u(u_loc)
@@ -239,59 +205,5 @@ def make_sharded_xla_matvec(
 
     def matvec(u_int: jnp.ndarray) -> jnp.ndarray:
         return fn(scalars, i_int, f_top, f_bottom, f_left, f_right, u_int)
-
-    return matvec
-
-
-def make_sharded_kernel_matvec(
-    mesh: Mesh,
-    previous_frame: jnp.ndarray,
-    speed_alpha,
-    remodelling_alpha,
-    dy_mode: str = "compat",
-) -> Callable:
-    """Build an interior-layout matvec ``(3, m, n) -> (3, m, n)`` equal to
-    ops.elop.el_matvec_reduced but executed as a shard_map of the fused
-    Pallas kernel over the mesh's (tx, ty) axes.
-
-    ``previous_frame``: the full (m+2, n+2) *normalised* frame (as inside
-    flow.variational.solve_frame_pair).  Requires m % tx == 0 and
-    n % ty == 0 (the solver images are pre-sized; no implicit padding).
-    """
-    import numpy as np
-
-    ni, nj = previous_frame.shape
-    m, n = ni - 2, nj - 2
-    tx = mesh.shape["tx"]
-    ty = mesh.shape["ty"]
-    if m % tx or n % ty:
-        raise ValueError(
-            f"interior {m}x{n} must tile evenly over (tx, ty)=({tx},{ty})"
-        )
-    dtype = previous_frame.dtype
-
-    i_int = previous_frame[1:-1, 1:-1]
-    f_top = previous_frame[0, :]
-    f_bottom = previous_frame[-1, :]
-    f_left = previous_frame[:, 0]
-    f_right = previous_frame[:, -1]
-    scalars = jnp.stack([
-        jnp.asarray(speed_alpha, dtype=dtype),
-        jnp.asarray(remodelling_alpha, dtype=dtype),
-    ])
-    meta = jnp.array(
-        [m // tx, n // ty, 1 if dy_mode == "compat" else 0], dtype=jnp.int32
-    )
-
-    fn = jax.shard_map(
-        _local_kernel_matvec,
-        mesh=mesh,
-        in_specs=(P("tx", "ty"), P(), P(), P(), P(), P(), P(), P(None, "tx", "ty")),
-        out_specs=P(None, "tx", "ty"),
-        check_vma=False,
-    )
-
-    def matvec(u_int: jnp.ndarray) -> jnp.ndarray:
-        return fn(i_int, f_top, f_bottom, f_left, f_right, scalars, meta, u_int)
 
     return matvec

@@ -1,16 +1,17 @@
 """Device meshes for distributed optical flow.
 
 The reference is strictly serial (SURVEY.md section 2.4: sequential PETSc,
-no MPI/NCCL anywhere).  The TPU engine's parallel axes are defined by the
-workload's own structure:
+no MPI/NCCL anywhere).  The engine's parallel axes are defined by the
+workload's own structure, not by how the devices are wired (every device
+of a host reaches every other at the same rate):
 
 * ``frames`` — frame-pair data parallelism (the reference's outer Python
   loops, ref optical_flow.py:83,791, become a sharded batch axis; across
-  hosts this axis rides DCN);
-* ``tx``, ``ty`` — 2-D spatial tiling of each image across chips (ICI).
-  All stencils need <= 2-pixel halos; under ``jit`` the XLA SPMD
-  partitioner inserts the halo collective-permutes automatically, and the
-  Krylov dot products become cross-chip psums.
+  hosts this is the axis that crosses the network);
+* ``tx``, ``ty`` — 2-D spatial tiling of each image across devices.
+  All stencils need <= 2-pixel halos; the tiled matvec exchanges them
+  explicitly (parallel.halo), and the Krylov dot products become
+  cross-device psums.
 
 Pipeline/expert parallelism have no analogue in this workload (no layered
 model, no experts) — spatial tiling + frame sharding are its "tensor
@@ -67,9 +68,8 @@ def make_mesh(
 ) -> Mesh:
     """Build a ('frames', 'tx', 'ty') mesh over the given devices.
 
-    Unspecified axis sizes are inferred (VERDICT r3/r4: partially
-    specified axes used to be silently discarded, and a single-huge-image
-    workload could not be expressed through the default path):
+    Unspecified axis sizes are inferred (partially specified axes are
+    honoured, and a single-huge-image workload has its own default):
 
     * all three unspecified — ``workload`` decides: ``'movie'`` (default)
       prefers frame-pair parallelism (no halo traffic) with modest tiling

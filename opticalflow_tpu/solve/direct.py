@@ -2,7 +2,7 @@
 
 The reference assembles a ``3*Ni*Nj`` sparse matrix with scipy.lil and
 either hands it to PETSc or to ``scipy.sparse.linalg.spsolve``
-(/root/reference/source/optical_flow.py:829-1072, 1147).  In the TPU
+(/root/reference/source/optical_flow.py:829-1072, 1147).  In this
 engine the assembled form exists only here, as
 
 * the *oracle* that the matrix-free stencil operator (ops.elop) is tested

@@ -1,6 +1,6 @@
 """Geometric-Galerkin multigrid preconditioner for the reduced EL system.
 
-TPU-native replacement for the strength of PETSc's composite
+On-device replacement for the strength of PETSc's composite
 bjacobi/ilu/hypre(BoomerAMG) preconditioner (ref optical_flow.py:1089-1090)
 — ILU and AMG setup are inherently sequential/host-bound, so instead we
 exploit the problem's geometry:
@@ -9,7 +9,7 @@ exploit the problem's geometry:
   stencil on the interior grid;
 * Galerkin coarse operators R A P (bilinear prolongation, R = P^T) of a
   9-point stencil are again 9-point stencils, so every level stays a
-  dense-plane stencil operator — perfect for the VPU;
+  dense-plane stencil operator of elementwise multiply-adds;
 * coarse stencils are computed **matrix-free by comb probing**: applying
   the fine operator to 27 period-3 comb vectors (3 fields x 9 shifts)
   recovers every coarse stencil entry exactly, because a period-3 comb
@@ -93,18 +93,17 @@ def stencil_matvec(S: jnp.ndarray, u: jnp.ndarray) -> jnp.ndarray:
     """y[o,i,j] = sum_{q,di,dj} S[o,q,di,dj,i,j] * u[q,i+di-1,j+dj-1]
     with zero padding outside the grid.  S: (3,3,3,3,M,N), u: (3,M,N).
 
-    Implemented as unrolled plane multiply-adds on the VPU — see the
-    in-body comment for the precision rationale (an einsum would route the
-    tiny (o, q) contraction through the MXU).
+    Implemented as unrolled plane multiply-adds — see the in-body comment
+    for the precision rationale (an einsum would hand the tiny (o, q)
+    contraction to a matrix unit).
     """
     m, n = u.shape[1], u.shape[2]
     upad = jnp.pad(u, ((0, 0), (1, 1), (1, 1)))
-    # Unrolled elementwise multiply-adds on the VPU: the (o, q) contraction
-    # is only 3x3, so an einsum would route it through the MXU, whose f32
-    # "default" precision is reduced (bf16 passes) — measured to degrade
-    # the V-cycle enough to triple GMRES iteration counts at 512^2 — and
-    # whose HIGHEST emulation faulted the device at 1024^2.  Plane FMAs
-    # are exact f32 and the op stays memory-bound either way.
+    # Unrolled elementwise multiply-adds: the (o, q) contraction is only
+    # 3x3, so an einsum would hand it to a matrix unit whose f32 "default"
+    # precision is reduced (TF32 on the GPU's tensor cores), which degrades
+    # the V-cycle and with it the Krylov iteration counts.  Plane
+    # multiply-adds are exact f32 and the op stays memory-bound either way.
     out = []
     for o in range(3):
         acc = None
@@ -144,8 +143,8 @@ def probe_stencil(matvec: Callable, m: int, n: int, dtype) -> jnp.ndarray:
     # (di-1, dj-1) hits comb (si, sj) iff the modular condition holds
     # (unique per pixel).  One einsum over the two 3-valued residue masks
     # assembles all 81 planes in a single fused pass — the naive
-    # masked-scatter loop rewrites the whole tensor 243 times (~GBs of HBM
-    # traffic per pair) and dominated the whole solve's runtime.
+    # masked-scatter loop rewrites the whole tensor 243 times (~GBs of
+    # device-memory traffic per pair).
     offs = jnp.arange(3)
     s_vals = jnp.arange(3)
     mask_i = ((ii.ravel()[None, None, :] + offs[None, :, None] - 1) % 3
@@ -154,7 +153,7 @@ def probe_stencil(matvec: Callable, m: int, n: int, dtype) -> jnp.ndarray:
               == s_vals[:, None, None]).astype(dtype)  # (sj, dj, j)
     # Assemble S[o,q,di,dj] = sum_{s,t} mask_i[s,di]*mask_j[t,dj]*ys[q,s,t,o]
     # as unrolled masked sums (the s,t contraction is 3x3; an einsum would
-    # use the MXU — see stencil_matvec for the precision/fault rationale).
+    # use a matrix unit — see stencil_matvec for the precision rationale).
     # The masks are 0/1 indicators, so each (s,t) term is an exact select.
     cols = []
     for d in range(3):
@@ -185,16 +184,16 @@ def color_masks(m: int, n: int) -> np.ndarray:
 
 def invert_blocks(blocks: jnp.ndarray) -> jnp.ndarray:
     """Invert (M, N, 3, 3) per-pixel blocks in closed form (adjugate /
-    determinant) with symmetric equilibration.  Pure elementwise VPU math:
-    ``jnp.linalg.inv`` lowers batched tiny LU factorizations that cost
-    ~700ms for a 12x254x254 batch on TPU — ~50x the cost of the entire
-    rest of the multigrid setup — while this is ~60 flops/pixel and
-    fuses.  The symmetric scaling D A D with D = 1/sqrt(|diag|) keeps the
+    determinant) with symmetric equilibration.  Pure elementwise math:
+    ``jnp.linalg.inv`` would lower one tiny batched LU factorization per
+    pixel (hundreds of thousands per frame pair), while this is ~60
+    flops/pixel and fuses.  The symmetric scaling D A D with
+    D = 1/sqrt(|diag|) keeps the
     f32 determinant O(1): the raw blocks mix O(alpha)~1e3-1e4 velocity
     rows with O(1) gamma rows, and the unscaled determinant loses bits to
     cancellation (an explicit Newton correction step is NOT safe here —
-    on near-singular blocks it amplifies the adjugate error and was
-    measured to triple BiCGStab iteration counts)."""
+    on near-singular blocks it amplifies the adjugate error and raises
+    BiCGStab iteration counts)."""
     diag = jnp.stack([blocks[..., k, k] for k in range(3)], axis=-1)
     s = 1.0 / jnp.sqrt(jnp.abs(diag) + 1e-30)
     scaled = blocks * s[..., :, None] * s[..., None, :]
@@ -228,8 +227,8 @@ def invert_blocks(blocks: jnp.ndarray) -> jnp.ndarray:
 
 def apply_blocks(binv: jnp.ndarray, r: jnp.ndarray) -> jnp.ndarray:
     """(M,N,3,3) per-pixel blocks applied to a (3,M,N) field."""
-    # 3x3 block application as unrolled plane FMAs (VPU-exact f32; see
-    # stencil_matvec for why this avoids einsum/MXU).
+    # 3x3 block application as unrolled plane multiply-adds (exact f32;
+    # see stencil_matvec for why this avoids an einsum).
     return jnp.stack([
         sum(binv[:, :, o, q] * r[q] for q in range(3)) for o in range(3)
     ])
@@ -285,10 +284,10 @@ def setup(
     (available analytically from the EL coefficients — probing not needed
     at the finest, most expensive level).
 
-    ``fine_smoother_matvec``: optional faster implementation of the same
-    fine operator used only inside the cycle (e.g. the fused Pallas
-    kernel); ``fine_matvec`` is always the one probed for the Galerkin
-    coarse stencils (it must tolerate an extra vmap level).
+    ``fine_smoother_matvec``: optional other implementation of the same
+    fine operator used only inside the cycle (the halo-exchange matvec of
+    a spatially tiled solve); ``fine_matvec`` is always the one probed for
+    the Galerkin coarse stencils (it must tolerate an extra vmap level).
     """
     levels: List[MGLevel] = []
     levels.append(
@@ -371,80 +370,3 @@ def v_cycle(h: MGHierarchy, b: jnp.ndarray, n_smooth: int = 1,
     """One V(n,n)-cycle from a zero initial guess — a fixed linear operator
     usable as a Krylov preconditioner."""
     return _descend(h, 0, b, n_smooth, smoother, damp, sweeps)
-
-
-def v_cycle_aligned(h: MGHierarchy, aops, binv_c: jnp.ndarray, b_c: jnp.ndarray,
-                    n_smooth: int = 1, damp: float = 0.7,
-                    sweeps: int = 2) -> jnp.ndarray:
-    """V-cycle on the v3 fused kernel's interior-aligned container layout
-    (ops.pallas_kernels.AlignedOps): matvec is C -> C with mirror rows
-    folded in-kernel, and the fine-level damped block-Jacobi updates run
-    directly on the container (``binv_c`` is the zero-padded fine-level
-    block inverse, so padding stays exactly zero) — NO layout conversions
-    in the smoothing sweeps at all.  Only the coarse-grid correction
-    slices to the interior (restrict) and pads back (prolong), once per
-    cycle.  Mathematically identical to :func:`v_cycle` with
-    ``smoother='jacobi'`` (the initial ``matvec(0)`` is skipped because
-    A@0 = 0)."""
-    m, n = h.levels[0].shape
-    K = aops.matvec
-
-    def update(r_c):
-        return damp * apply_blocks(binv_c, r_c)
-
-    # pre-smooth from x = 0 (first sweep's residual is b itself)
-    x = update(b_c)
-    for _ in range(n_smooth * sweeps - 1):
-        x = x + update(b_c - K(x))
-    # coarse-grid correction
-    r = b_c - K(x)
-    if len(h.levels) == 1:
-        e = h.coarse_solve(aops.slice_field(r))
-    else:
-        e = _descend(h, 1, restrict(aops.slice_field(r), h.levels[1].shape),
-                     n_smooth, "jacobi", damp, sweeps)
-    x = x + aops.pad_field(prolong(e, (m, n)))
-    # post-smooth
-    for _ in range(n_smooth * sweeps):
-        x = x + update(b_c - K(x))
-    return x
-
-
-def v_cycle_padded(h: MGHierarchy, pops, b_R: jnp.ndarray, n_smooth: int = 1,
-                   damp: float = 0.7, sweeps: int = 2) -> jnp.ndarray:
-    """V-cycle whose *fine level* runs on the fused Pallas kernel's
-    aligned layouts (see ops.pallas_kernels.PaddedOps): ``b_R`` is the
-    residual-space (zero-padded) right-hand side and the return value is
-    the solution-space (mirror-extended, padded) correction — exactly the
-    bridge BiCGStab needs for a right preconditioner with a Pallas matvec.
-
-    Mathematically identical to :func:`v_cycle` with ``smoother='jacobi'``
-    (the damped block-Jacobi fine sweeps, the coarse-grid correction, and
-    the coarse hierarchy are the same operators; the initial
-    ``matvec(0)`` of the first sweep is skipped because A@0 = 0).  Coarse
-    levels are small, so they stay on the unpadded XLA path.
-    """
-    m, n = h.levels[0].shape
-    binv0 = h.levels[0].binv
-    K = pops.matvec
-
-    def update(r_R):
-        """damped block-Jacobi correction, lifted to solution space."""
-        return pops.extend_pad(damp * apply_blocks(binv0, pops.slice_residual(r_R)))
-
-    # pre-smooth from x = 0 (first sweep's residual is b itself)
-    x_P = update(b_R)
-    for _ in range(n_smooth * sweeps - 1):
-        x_P = x_P + update(b_R - K(x_P))
-    # coarse-grid correction
-    r = b_R - K(x_P)
-    if len(h.levels) == 1:
-        e = h.coarse_solve(pops.slice_residual(r))
-    else:
-        e = _descend(h, 1, restrict(pops.slice_residual(r), h.levels[1].shape),
-                     n_smooth, "jacobi", damp, sweeps)
-    x_P = x_P + pops.extend_pad(prolong(e, (m, n)))
-    # post-smooth
-    for _ in range(n_smooth * sweeps):
-        x_P = x_P + update(b_R - K(x_P))
-    return x_P

@@ -49,7 +49,7 @@ def main():
     sl = slice(rank * n_local, (rank + 1) * n_local - rank)
 
     # 2 local devices as (1 frame) x (1 x 2 tiles): the frames axis spans
-    # exactly the two processes (DCN analogue) and each pair's image is
+    # exactly the two processes (the inter-host axis) and each pair's image is
     # tiled across the process's devices
     mesh = distributed.multihost_mesh(tx=1, ty=2)
     local_u, infos = distributed.distributed_variational_solve(

@@ -3,7 +3,7 @@
 These follow the *semantics* of the reference numba kernels
 (/root/reference/source/optical_flow.py) as documented in SURVEY.md, written
 independently as straightforward loops so that agreement between the fused
-TPU path and these oracles is meaningful evidence of correctness.
+device path and these oracles is meaningful evidence of correctness.
 """
 
 from __future__ import annotations

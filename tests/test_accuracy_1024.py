@@ -1,4 +1,4 @@
-"""Independent accuracy evidence at BASELINE config-2 scale (VERDICT r4 #4).
+"""Independent accuracy evidence at BASELINE config-2 scale.
 
 The bench's 1024^2 record judges convergence on the engine's own df32
 true residual; the f64 spsolve oracle is impractical at 3.1M unknowns

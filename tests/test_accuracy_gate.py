@@ -1,11 +1,11 @@
-"""EPE regression gate at bench scale (VERDICT round-2 item #1).
+"""EPE regression gate at bench scale.
 
-Round 2 shipped an EPE regression (3.0e-3 px vs the <1e-3 px BASELINE
-target) silently because every EPE-checking test ran at 24^2-40^2 while
+An EPE regression above the <1e-3 px BASELINE target once shipped
+silently because every EPE-checking test ran at 24^2-40^2 while
 bench.py measures 256^2.  This gate solves one 256^2 frame pair through
 the production f32 path — same dtype, same tol floor, and *f32 dot
-products* (high_precision_reductions off, mimicking the TPU where x64 is
-unavailable) — and asserts the flow endpoint error against the f64
+products* (high_precision_reductions off, mimicking a production run with
+x64 off) — and asserts the flow endpoint error against the f64
 assembled direct solve stays inside the BASELINE config-2 target.
 """
 
@@ -46,16 +46,16 @@ def test_epe_under_baseline_target_at_bench_scale():
 
 
 def test_epe_of_batched_movie_solve_every_pair():
-    """VERDICT r3 item #2: the r3 EPE regression (1.45e-3 px) lived ONLY
-    in the batched path — vmapped ``_solve_movie`` with the adaptive
-    refinement ``lax.while_loop``, whose batching semantics differ from
+    """An EPE regression once lived ONLY in the batched path — vmapped
+    ``_solve_movie`` with the adaptive refinement ``lax.while_loop``,
+    whose batching semantics differ from
     the solo solve the old gate covered.  This gate runs the exact bench
     code path (vmapped batch, refinement on, f32 fields + f32 reductions)
     and asserts EVERY pair's EPE against its own f64 direct oracle.
 
     128^2 x 12 pairs keeps the CPU suite affordable; the while_loop
-    batching behaviour being gated is size-independent (the on-chip
-    256^2 x 12 numbers live in bench.py / BENCH_r04)."""
+    batching behaviour being gated is size-independent (the 256^2 x 12
+    batch is checked on the GPU by chip_smoke.py's batch_256 phase)."""
     dim, n_pairs = 128, 12
     movie, _ = make_movie(n_pairs + 1, dim, np.float64)
 

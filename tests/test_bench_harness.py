@@ -1,11 +1,11 @@
-"""The bench harness's un-killable contract (VERDICT r4 #1).
+"""The bench harness's un-killable contract.
 
-Two rounds of driver-captured performance evidence were lost to the old
-all-or-nothing bench (r3 rc=124, r4 value=null).  These tests pin the
-round-5 guarantees via ``bench.py --selfcheck`` (no TPU, no jax import on
-the hot path): the headline value is recorded before later sections, the
-budget gate records skipped sections, and SIGTERM mid-run still emits a
-complete JSON line with stage timestamps and ``interrupted_at_s``.
+An all-or-nothing bench loses its whole record when it is cut.  These
+tests pin the guarantees via ``bench.py --selfcheck`` (no device, no jax
+import on the hot path): the headline value is recorded before later
+sections, the budget gate records skipped sections, and SIGTERM mid-run
+still emits a complete JSON line with stage timestamps and
+``interrupted_at_s``.
 """
 
 import json
@@ -69,3 +69,16 @@ def test_sigterm_mid_run_still_emits_headline_json():
     assert rec["value"] == 1.0, "headline lost on SIGTERM"
     assert "interrupted_at_s" in rec
     assert "stub_value_set" in rec["stages"]
+
+
+def test_peak_table_knows_h100_and_refuses_unknown_devices():
+    """Roofline shares are taken against a published peak for the exact
+    device; an unlisted device is an error, never a default."""
+    import pytest
+
+    sys.path.insert(0, REPO)
+    import bench
+
+    assert bench.device_peaks("NVIDIA H100 80GB HBM3")["hbm_gbps"] == 3350.0
+    with pytest.raises(ValueError, match="no published peaks"):
+        bench.device_peaks("Unknown Accelerator 9000")

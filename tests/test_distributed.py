@@ -1,11 +1,11 @@
 """Multi-host story: a REAL two-process jax.distributed run on CPU.
 
 The reference is serial (SURVEY.md section 2.4); BASELINE.md config 5
-(multi-host sweep over DCN) is the promised new-design component.  This
+(multi-host sweep) is the promised new-design component.  This
 test exercises the full multi-process machinery without a pod: two OS
 processes, each with 2 virtual CPU devices, form one 4-device global
-mesh (frames axis across processes = DCN analogue, spatial tiles within
-a process = ICI analogue), run one SPMD variational solve through
+mesh (frames axis across processes = the inter-host axis, spatial tiles
+within a process), run one SPMD variational solve through
 opticalflow_tpu.parallel.distributed, and their gathered local blocks
 must match the single-process solution.
 """

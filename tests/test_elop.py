@@ -95,3 +95,78 @@ def test_extend_interior_matches_constraints(system):
     boundary = np.ones((NI, NJ), dtype=bool)
     boundary[1:-1, 1:-1] = False
     assert np.abs(y_fields[:, boundary]).max() < 1e-12
+
+
+def _extend_oracle(u_int):
+    """Full-grid field from an interior one by the boundary rows of the
+    assembled system: edges mirror across the boundary, and each corner row
+    ``q(0,0) - q(2,0) - q(0,2) = 0`` sums its two edge mirrors."""
+    _, m, n = u_int.shape
+    u = np.zeros((3, m + 2, n + 2))
+    u[:, 1:-1, 1:-1] = u_int
+    u[:, 0, 1:-1] = u[:, 2, 1:-1]
+    u[:, -1, 1:-1] = u[:, -3, 1:-1]
+    u[:, 1:-1, 0] = u[:, 1:-1, 2]
+    u[:, 1:-1, -1] = u[:, 1:-1, -3]
+    u[:, 0, 0] = u[:, 2, 0] + u[:, 0, 2]
+    u[:, 0, -1] = u[:, 2, -1] + u[:, 0, -3]
+    u[:, -1, 0] = u[:, -3, 0] + u[:, -1, 2]
+    u[:, -1, -1] = u[:, -3, -1] + u[:, -1, -3]
+    return u
+
+
+def _blob_pair(m, n, dy_mode, seed=1):
+    from opticalflow_tpu.core.synth import make_translating_blob_movie
+
+    movie, _ = make_translating_blob_movie(
+        n_frames=2, dimension=max(m, n) + 2, width=10.0, sigma=3.0,
+        v_x=0.2, v_y=0.1, dtype=jnp.float64,
+    )
+    movie = np.asarray(movie)[:, : m + 2, : n + 2] * 100.0
+    pair = elop.compute_frame_pair_data(
+        jnp.asarray(movie[0]), jnp.asarray(movie[1]), 800.0, 900.0, dy_mode
+    )
+    u = np.random.default_rng(seed).standard_normal((3, m, n))
+    return movie, pair, u
+
+
+@pytest.mark.parametrize("shape", [(30, 40), (128, 254), (254, 254)])
+@pytest.mark.parametrize("dy_mode", ["compat", "fixed"])
+def test_reduced_matvec_matches_assembled_matrix(shape, dy_mode):
+    """The reduced stencil equals the interior rows of the assembled full
+    system applied to the boundary-constrained extension of the field, at
+    the frame sizes the bench and the chip check run."""
+    m, n = shape
+    _, pair, u = _blob_pair(m, n, dy_mode)
+    y = np.asarray(elop.el_matvec_reduced(pair.coeffs, jnp.asarray(u)))
+    A = direct.assemble_el_matrix(pair.coeffs, m + 2, n + 2)
+    y_full = direct.flat_to_fields(
+        A @ direct.fields_to_flat(_extend_oracle(u)), m + 2, n + 2
+    )
+    scale = np.abs(y_full).max()
+    np.testing.assert_allclose(y, y_full[:, 1:-1, 1:-1], rtol=0, atol=1e-12 * scale)
+
+
+def test_reduced_matvec_under_vmap_matches_per_pair():
+    """A frame-pair batch (vmap over coefficients and fields) gives each
+    pair's own matvec."""
+    import jax
+
+    m = n = 62
+    from opticalflow_tpu.core.synth import make_translating_blob_movie
+
+    movie, _ = make_translating_blob_movie(
+        n_frames=4, dimension=m + 2, width=10.0, sigma=3.0, v_x=0.2, v_y=0.1,
+        dtype=jnp.float64,
+    )
+    movie = jnp.asarray(np.asarray(movie) * 100.0)
+    us = jnp.asarray(np.random.default_rng(7).standard_normal((3, 3, m, n)))
+
+    def one(prev, cur, u):
+        pair = elop.compute_frame_pair_data(prev, cur, 800.0, 900.0, "compat")
+        return elop.el_matvec_reduced(pair.coeffs, u)
+
+    y_batch = np.asarray(jax.vmap(one)(movie[:-1], movie[1:], us))
+    for k in range(3):
+        y_k = np.asarray(one(movie[k], movie[k + 1], us[k]))
+        np.testing.assert_allclose(y_batch[k], y_k, rtol=1e-13, atol=1e-9)

@@ -77,7 +77,7 @@ def test_sharded_variational_matches_single_device(movie):
 
 def test_frames_only_shard_map_matches_single_device(movie):
     """Frames-only meshes take the shard_map path (per-device independent
-    while loops — no per-iteration frames-axis all-reduce, VERDICT r4 #5);
+    while loops — no per-iteration frames-axis all-reduce);
     it must reproduce the single-device batched solve bitwise: each pair's
     Krylov iteration is unchanged, only its device placement moves."""
     mesh = mesh_lib.make_mesh(jax.devices()[:4], frames=4, tx=1, ty=1)
@@ -98,7 +98,7 @@ def test_frames_only_shard_map_matches_single_device(movie):
 
 
 def test_sharded_multigrid_parity_and_iterations(movie):
-    """Round-2 VERDICT #3: the sharded path must keep the multigrid
+    """The sharded path must keep the multigrid
     preconditioner (now the default) instead of degrading to block-Jacobi
     — comb probing, the Galerkin hierarchy, and the coarse LU must all
     compile and converge under GSPMD, in production f32, at block-Jacobi
@@ -187,73 +187,14 @@ def test_sharded_reduced_matvec_matches_untiled_at_size(dims, tiles):
     np.testing.assert_allclose(y_tiled, y_ref, rtol=1e-11, atol=1e-11)
 
 
-def test_sharded_pallas_matvec_matches_xla(monkeypatch):
-    """Round-2 VERDICT #4: the fused Pallas matvec must run under spatial
-    tiling.  The shard_map + ppermute halo-exchange wrapper
-    (parallel.pallas_spmd) must reproduce ops.elop.el_matvec_reduced
-    exactly (same stencil, same global-edge fold semantics) on every mesh
-    factoring — a halo or corner bug produces O(1) errors at tile seams."""
-    from opticalflow_tpu.ops import elop
-    from opticalflow_tpu.ops import pallas_kernels as pk
-    from opticalflow_tpu.parallel import pallas_spmd
-
-    monkeypatch.setattr(pk, "INTERPRET", True)
-    m = n = 64
-    movie, _ = make_translating_blob_movie(
-        n_frames=2, dimension=m + 2, width=10.0, sigma=3.0, v_x=0.2, v_y=0.1,
-        dtype=jnp.float32,
-    )
-    movie = jnp.asarray(np.asarray(movie) * 100.0, jnp.float32)
-    rng = np.random.default_rng(3)
-    u = jnp.asarray(rng.standard_normal((3, m, n)), jnp.float32)
-
-    pair = elop.compute_frame_pair_data(
-        movie[0], movie[1], jnp.float32(800.0), jnp.float32(900.0), "compat"
-    )
-    y_ref = elop.el_matvec_reduced(pair.coeffs, u)
-    scale = float(jnp.max(jnp.abs(y_ref)))
-
-    for tx, ty in [(2, 2), (1, 4), (4, 2)]:
-        mesh = mesh_lib.make_mesh(jax.devices()[: tx * ty], frames=1, tx=tx, ty=ty)
-        mv = pallas_spmd.make_sharded_kernel_matvec(
-            mesh, movie[0], 800.0, 900.0, "compat"
-        )
-        y = jax.jit(mv)(u)
-        err = float(jnp.max(jnp.abs(y - y_ref))) / scale
-        assert err < 1e-6, f"(tx,ty)=({tx},{ty}): rel err {err:.2e}"
-
-
-def test_sharded_solve_through_pallas_kernel(movie, monkeypatch):
-    """Round-2 VERDICT #4 'Done' criterion: a sharded 2x2-tile *solve* runs
-    the fused kernel (interpret mode) — matvec and multigrid fine smoother
-    on the kernel, Krylov state under GSPMD — and matches the XLA path."""
-    from opticalflow_tpu.ops import pallas_kernels as pk
-
-    monkeypatch.setattr(pk, "INTERPRET", True)
-    m, _ = movie if isinstance(movie, tuple) else (movie, None)
-    mesh = mesh_lib.make_mesh(jax.devices()[:8], frames=2, tx=2, ty=2)
-    u_pl, i_pl = sharded_variational_solve(
-        m, mesh=mesh, speed_alpha=500.0, remodelling_alpha=500.0,
-        solver=SolverConfig(matvec="pallas"), dtype=np.float32,
-    )
-    u_xla, _ = sharded_variational_solve(
-        m, mesh=mesh, speed_alpha=500.0, remodelling_alpha=500.0,
-        solver=SolverConfig(matvec="xla"), dtype=np.float32,
-    )
-    assert np.asarray(i_pl["converged"]).all()
-    np.testing.assert_allclose(
-        np.asarray(u_pl), np.asarray(u_xla), rtol=5e-3, atol=5e-4
-    )
-
-
 def test_sharded_xla_matvec_parity():
-    """The one-exchange-per-application shard_map matvec (round-4 fix for
-    the GSPMD 51-collectives-per-matvec cliff, see bench/SCALING_ANALYSIS.md)
-    must equal el_matvec_reduced exactly on a (tx, ty) mesh."""
+    """The one-exchange-per-application shard_map matvec (the fix for
+    GSPMD's 51 collectives per matvec, see parallel.halo) must equal
+    el_matvec_reduced exactly on a (tx, ty) mesh."""
     import jax.numpy as jnp
 
     from opticalflow_tpu.ops import elop
-    from opticalflow_tpu.parallel import pallas_spmd
+    from opticalflow_tpu.parallel import halo
 
     mesh = mesh_lib.make_mesh(jax.devices()[:4], frames=1, tx=2, ty=2)
     rng = np.random.default_rng(5)
@@ -265,7 +206,7 @@ def test_sharded_xla_matvec_parity():
     for dy_mode in ("compat", "fixed"):
         pair = elop.compute_frame_pair_data(prev, prev * 1.01, a_s, a_r, dy_mode)
         ref = elop.el_matvec_reduced(pair.coeffs, u)
-        mv = pallas_spmd.make_sharded_xla_matvec(mesh, prev, a_s, a_r, dy_mode)
+        mv = halo.make_sharded_xla_matvec(mesh, prev, a_s, a_r, dy_mode)
         out = mv(u)
         np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                    rtol=1e-12, atol=1e-12)

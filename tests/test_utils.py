@@ -88,7 +88,7 @@ def test_drivers_cli_file_experiment(tmp_path):
 
 def test_profile_solve_phases_smoke():
     """Per-phase solver profile: phases present, positive, and recorded
-    into the span registry (VERDICT r2 item #8)."""
+    into the span registry."""
     from opticalflow_tpu.core.synth import make_translating_blob_movie
     from opticalflow_tpu.flow.variational import profile_solve_phases
 
@@ -105,3 +105,58 @@ def test_profile_solve_phases_smoke():
     assert phases["total"] > 0.0
     stats = span_statistics()
     assert stats["solve/krylov_main"]["count"] == 1
+
+
+def _run_in(cwd, script, env_dir=None):
+    """Run ``script`` in a fresh interpreter from ``cwd`` with the repo
+    importable and ``JAX_COMPILATION_CACHE_DIR`` set only to ``env_dir``."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["PYTHONPATH"] = repo
+    env["JAX_PLATFORMS"] = "cpu"
+    if env_dir is not None:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(env_dir)
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    return out.stdout.split()
+
+
+_CACHE_SCRIPT = """
+import jax
+from opticalflow_tpu.utils import compile_cache
+d = compile_cache.enable()
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+jax.jit(lambda x: x * 2.0 + 1.0)(1.0).block_until_ready()
+print(d, jax.config.jax_compilation_cache_dir)
+"""
+
+
+def test_compile_cache_lands_in_env_dir(tmp_path):
+    """A directory set in JAX_COMPILATION_CACHE_DIR wins, and compiled
+    programs are stored there."""
+    cache = tmp_path / "cache"
+    enabled, configured = _run_in(tmp_path, _CACHE_SCRIPT, env_dir=cache)
+    assert enabled == configured == str(cache)
+    assert any(cache.iterdir())
+
+
+def test_compile_cache_defaults_to_checkout_from_any_cwd(tmp_path):
+    """Without the variable the cache is the checkout's .jax_cache, whatever
+    the working directory."""
+    import os
+
+    script = (
+        "import jax\n"
+        "from opticalflow_tpu.utils import compile_cache\n"
+        "print(compile_cache.enable(), jax.config.jax_compilation_cache_dir)\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    enabled, configured = _run_in(tmp_path, script)
+    assert enabled == configured == os.path.join(repo, ".jax_cache")
